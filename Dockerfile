@@ -12,7 +12,7 @@ COPY pyproject.toml README.md ./
 COPY nimble_tpu ./nimble_tpu
 COPY native ./native
 
-RUN pip install --no-cache-dir . "jax[tpu]" matplotlib jinja2 \
+RUN pip install --no-cache-dir . "jax[cuda12]" matplotlib jinja2 \
     && make -C native
 
 ENV LD_PRELOAD=/usr/lib/x86_64-linux-gnu/libjemalloc.so.2

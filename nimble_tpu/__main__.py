@@ -224,13 +224,11 @@ def main(argv=None) -> int:
             # keys match what the first real `align` run will look up
             import time as _time
 
+            from nimble_tpu import accel
             from nimble_tpu.align.engine import AlignEngine
-            from nimble_tpu.align.pipeline import (
-                _enable_compilation_cache,
-                _round_len,
-            )
+            from nimble_tpu.align.pipeline import _round_len
 
-            _enable_compilation_cache()
+            accel.compile_cache_dir()
             t0 = _time.time()
             engine = AlignEngine(
                 idx,

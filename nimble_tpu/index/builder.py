@@ -2,14 +2,14 @@
 
 Replaces the reference backend's startup-time colored de-Bruijn-graph /
 k-mer index (rust-pseudoaligner lineage; reference contract:
-nimble/types.py:10-32 and SURVEY §2.8) with a TPU-first layout:
+nimble/types.py:10-32 and SURVEY §2.8) with a device-first layout:
 
   * a two-choice bucketed hash table over packed k-mer codes.  Every key
     lives in one of two buckets of BUCKET_SLOTS slots, so a device lookup is
     exactly two 8-slot bucket gathers + compares — a fixed, SIMD-friendly
     probe cost, unlike linear probing whose worst-case displacement every
     vector lane must pay.  Keys are uint64 k-mer codes split into (hi, lo)
-    uint32 pairs (TPU int64 is emulated; uint32 is native).
+    uint32 pairs (the device hot path stays in 32-bit integers).
   * an equivalence-class ("color") table: each distinct feature set gets a
     class id; the hash value of a k-mer is its class id.  Classes are stored
     both as CSR lists (host decode) and as a bitset matrix
@@ -76,7 +76,7 @@ class KmerIndex:
     n_kmers: int
     # group-probe entries: one entry per distinct CANONICAL (k+g-1)-mer
     # occurring in the library, so ONE device row gather answers g read
-    # windows at once (the gather is the measured per-ROW bottleneck; see
+    # windows at once (the gather is the probe's per-ROW cost; see
     # align/engine group-probe path). pair_vals[:, i] is the class id of the
     # i-th k-window of the canonical code; pair_vals[:, g+i] the class id of
     # the i-th k-window of its reverse complement (-1 = that window's k-mer
@@ -232,9 +232,8 @@ INDEX_FORMAT_VERSION = 4  # v4: group entries default to g=6 (was 2)
 
 # windows per group-probe entry: a (k+GROUP_G-1)-mer contains GROUP_G
 # consecutive k-windows, so one device row gather answers GROUP_G windows
-# (6x fewer probe rows at g=6). Measured on v5e (scripts/ablate_group3/4):
-# g=6 beats g=2/3/4 at every chunk size (3.5M reads/s vs 1.7M at chunk
-# 65536). Max 8 (per-window presence masks pack as four 8-bit fields in one
+# (6x fewer probe rows at g=6; g=6 was chosen over g=2/3/4 by an earlier
+# measurement not yet repeated on the H100). Max 8 (per-window presence masks pack as four 8-bit fields in one
 # int32); override via NIMBLE_TPU_GROUP_G (0 disables group entries).
 GROUP_G = 6
 

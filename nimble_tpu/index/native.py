@@ -9,7 +9,7 @@ the numpy one with fingerprints); every probe decodes to the same feature
 set, which tests/test_index.py verifies differentially.
 
 The reference builds its index at aligner startup in Rust
-(rust-pseudoaligner lineage; SURVEY §2.8) — this is the TPU build's native
+(rust-pseudoaligner lineage; SURVEY §2.8) — this is the native
 equivalent, emitting device-ready tensors.
 """
 from __future__ import annotations

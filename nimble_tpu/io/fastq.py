@@ -3,7 +3,7 @@ numpy batches for the device pipeline.
 
 Replaces the reference's Bio.SeqIO FASTQ path (reference:
 nimble/fastq_barcode_processor.py:251-257) with a batch-oriented reader: the
-TPU engine consumes (codes, lengths) arrays, not per-record objects.
+device engine consumes (codes, lengths) arrays, not per-record objects.
 """
 from __future__ import annotations
 

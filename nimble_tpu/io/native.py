@@ -1,15 +1,17 @@
 """ctypes bindings for the C++ native IO layer (native/nimble_native.cpp).
 
-Loads (building on first use if the toolchain is present) libnimble_native.so
-and exposes a native FASTQ batch reader with the same batch-dict interface as
-the pure-Python nimble_tpu.io.fastq.FastqReader. Falls back gracefully:
-`available()` gates every caller.
+Loads libnimble_native.so, building it first (`make -C native`) when it is
+missing or older than nimble_native.cpp, and exposes a native FASTQ batch
+reader with the same batch-dict interface as the pure-Python
+nimble_tpu.io.fastq.FastqReader. A failed build is reported on stderr and
+the numpy paths take over: `available()` gates every caller.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import sys
 from typing import Iterator, Optional
 
 import numpy as np
@@ -29,19 +31,30 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
-    if not os.path.exists(_SO_PATH):
+    src = os.path.join(_NATIVE_DIR, "nimble_native.cpp")
+    stale = (not os.path.exists(_SO_PATH)
+             or os.path.getmtime(_SO_PATH) < os.path.getmtime(src))
+    if stale:
         try:
             subprocess.run(
-                ["make", "-C", _NATIVE_DIR],
+                ["make", "-C", _NATIVE_DIR, "-B"],
                 check=True,
                 capture_output=True,
-                timeout=120,
+                timeout=300,
             )
-        except Exception:
+        except (OSError, subprocess.SubprocessError) as e:
+            detail = getattr(e, "stderr", b"") or b""
+            print(
+                f"nimble_tpu: native build failed ({e}); using the numpy "
+                f"paths\n{detail.decode(errors='replace')[-2000:]}",
+                file=sys.stderr,
+            )
             return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
+    except OSError as e:
+        print(f"nimble_tpu: cannot load {_SO_PATH} ({e}); using the numpy paths",
+              file=sys.stderr)
         return None
     lib.nt_fastq_open.restype = ctypes.c_void_p
     lib.nt_fastq_open.argtypes = [ctypes.c_char_p]

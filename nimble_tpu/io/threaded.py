@@ -34,7 +34,7 @@ from nimble_tpu.io import native as _native
 _CHUNK_BYTES = 8 << 20
 
 # libdeflate whole-member inflate runs ~2.4x faster than streaming zlib
-# (measured 888 vs 365 MB/s on this host; docs/PERF.md round-3), but needs
+# (measured 888 vs 365 MB/s on one CPU host), but needs
 # the whole member's output resident. Files whose COMPRESSED size exceeds
 # this cap fall back to streaming zlib.
 _LIBDEFLATE_MAX_MB = int(
@@ -378,8 +378,8 @@ class ThreadedFastqReader:
 
             gz: streaming zlib by default — libdeflate inflates 2.4x
             faster but needs the whole output resident, and on this class
-            of VM first-touch page faults run at only ~170-280 MB/s
-            (docs/PERF.md round-3), which more than eats the win; hosts
+            of VM first-touch page faults run at only ~170-280 MB/s,
+            which more than eats the win; hosts
             with normal memory can opt in via NIMBLE_TPU_WHOLE_INFLATE=1.
             plain: whole-file memmap cut into contiguous zero-copy views
             (the OS pages it; cap NIMBLE_TPU_PLAIN_MMAP_MAX_MB)."""

@@ -27,8 +27,8 @@ distinct strings ever collide, the whole batch is re-hashed with a salted
 family (blake2b salt) until collision-free — no hard failure.
 
 `init_distributed()` wires jax.distributed for real multi-host pods; the
-same shard_map code runs unmodified on the single-process CPU/TPU meshes
-used in tests.
+same shard_map code runs unmodified on the single-process CPU meshes used
+in tests and on GPU meshes.
 """
 from __future__ import annotations
 

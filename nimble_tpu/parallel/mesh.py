@@ -122,11 +122,14 @@ def pad_axis(arr: np.ndarray, axis: int, multiple: int, fill=0) -> np.ndarray:
     return np.pad(arr, pad, constant_values=fill)
 
 
-def plan_index_placement(index, hbm_bytes_per_chip: int = 12 << 30, n_chips: int = 1):
-    """Replicate-vs-shard planner for an index against the per-chip HBM
-    budget (SURVEY §5.7: prefer replicating the index and sharding the read
-    stream — embarrassingly parallel, no inner-loop comm — and shard the
-    class-bitset matrix over the feature axis only when it must spill).
+def plan_index_placement(index, hbm_bytes_per_chip: Optional[int] = None, n_chips: int = 1):
+    """Replicate-vs-shard planner for an index against the per-chip device
+    memory budget (SURVEY §5.7: prefer replicating the index and sharding
+    the read stream — embarrassingly parallel, no inner-loop comm — and
+    shard the class-bitset matrix over the feature axis only when it must
+    spill). hbm_bytes_per_chip defaults to the first device's own
+    allocator limit (accel.device_bytes_limit; an error on a device that
+    reports none, such as the CPU, where callers pass a size).
 
     Returns a dict: {"table_bytes", "class_bytes", "replicate_table",
     "feature_shards"}: feature_shards == 1 means fully replicated.
@@ -138,6 +141,10 @@ def plan_index_placement(index, hbm_bytes_per_chip: int = 12 << 30, n_chips: int
         + index.table_vdiff.nbytes
     )
     class_bytes = int(index.class_bits.nbytes)
+    if hbm_bytes_per_chip is None:
+        from nimble_tpu import accel
+
+        hbm_bytes_per_chip = accel.device_bytes_limit()
     budget = int(hbm_bytes_per_chip * 0.6)  # leave room for batches/workspace
 
     feature_shards = 1

@@ -185,6 +185,10 @@ def report(
     stream: run the host path via bounded spill buckets (quant/stream.py)
     so inputs larger than RAM work, bit-identically. None = auto: stream
     when the input exceeds NIMBLE_TPU_REPORT_STREAM_MB (default 4096)."""
+    if engine != "host":
+        from nimble_tpu import accel
+
+        accel.print_device_line()
     if engine == "host":
         if stream is None:
             cap_mb = int(os.environ.get("NIMBLE_TPU_REPORT_STREAM_MB", "4096"))

@@ -1,6 +1,6 @@
 """In-process A/B: fused dual-orientation coverage (coverage_score2) vs
-two coverage_score calls, on the 20k gband engine. Interleaved bursts —
-the multi-tenant chip makes cross-run comparisons meaningless.
+two coverage_score calls, on the 20k gband engine. Interleaved bursts:
+compare two variants only within one run.
 
 Usage: python scripts/ab_cov2.py [CHUNK]
 """
@@ -19,12 +19,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from nimble_tpu import accel
+
+    accel.compile_cache_dir()
 
     from nimble_tpu.align.engine import AlignEngine
     from nimble_tpu.config import Config
-    from ablate_gband import get_index, READ_LEN
+    from bigindex import get_index, READ_LEN
 
     chunk = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
     index, backbones = get_index()

@@ -1,7 +1,6 @@
 """Generic in-process engine A/B on the 20k-allele workload: build one
-gband engine per env-variant, then interleave best-of bursts (the
-multi-tenant chip drifts >1.4x across sessions, so only interleaved
-comparisons are meaningful).
+gband engine per env-variant, then interleave best-of bursts (compare two
+variants only within one run).
 
 Usage: python scripts/ab_engine_envs.py CHUNK name1=ENV=V[,ENV=V...] name2=...
 e.g.   python scripts/ab_engine_envs.py 65536 ind= dense=NIMBLE_TPU_GBAND_INDIRECT=0
@@ -21,12 +20,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from nimble_tpu import accel
+
+    accel.compile_cache_dir()
 
     from nimble_tpu.align.engine import AlignEngine
     from nimble_tpu.config import Config
-    from ablate_gband import get_index, READ_LEN
+    from bigindex import get_index, READ_LEN
 
     chunk = int(sys.argv[1])
     variants = []

@@ -21,12 +21,12 @@ def main():
         SpanFeeder,
         _make_batches,
         make_runner,
-        _enable_compilation_cache,
     )
+    from nimble_tpu import accel
     from nimble_tpu.align.engine import AlignEngine
     from nimble_tpu.io.packing import pack_batch
 
-    _enable_compilation_cache()
+    accel.compile_cache_dir()
     t0 = time.perf_counter()
     runner = make_runner(lib, "/dev/null", build_engine=False)
     L = 128

@@ -1,11 +1,10 @@
-"""Materialize the 20k-allele wide-path workload for a full `align` CLI
-run on hardware (VERDICT r4 item 1): the same library bigindex.py builds
-in memory (20 families x 1000 alleles, 3kb, ~25 SNPs) written as a
-[Config, Data] JSON, plus a gzipped FASTQ of backbone reads with 1%
-substitution error, half reverse-complemented (the chained measurement's
-read distribution).
+"""Materialize the wide-library workload for a full `align` CLI run: the
+library of bigindex.py (N families x 1000 alleles, 3kb, ~25 SNPs; 20
+families by default) written as a [Config, Data] JSON, plus a gzipped
+FASTQ of backbone reads with 1% substitution error, half
+reverse-complemented.
 
-Usage: python scripts/make_big20k_cli.py OUTDIR [N_READS]
+Usage: python scripts/make_big20k_cli.py OUTDIR [N_READS] [N_FAMILIES]
 """
 import gzip
 import json
@@ -15,43 +14,30 @@ import sys
 import numpy as np
 
 sys.path.insert(0, pathlib.Path(__file__).resolve().parents[1].as_posix())
+sys.path.insert(0, pathlib.Path(__file__).resolve().parent.as_posix())
 
-N_FAMILIES = 20
-ALLELES_PER_FAMILY = 1000
-ALLELE_LEN = 3000
-SNPS = 25
-READ_LEN = 100
+from bigindex import ALLELE_LEN, N_FAMILIES, READ_LEN, build_library  # noqa: E402
+
 ERROR_RATE = 0.01
 
 
-def main():
-    outdir = pathlib.Path(sys.argv[1])
-    n_reads = int(sys.argv[2]) if len(sys.argv) > 2 else 2_000_000
-    outdir.mkdir(parents=True, exist_ok=True)
+def write_library(outdir: pathlib.Path, n_families: int = N_FAMILIES):
+    """Write big20k.json for n_families families; returns (path, backbones)."""
+    from nimble_tpu.config import Config
 
-    from nimble_tpu import seq as seqmod
-    from nimble_tpu.config import Config, Data
-
-    rng = np.random.default_rng(0)
-    data = Data()
-    backbones = []
-    for fam in range(N_FAMILIES):
-        bb = rng.integers(0, 4, size=ALLELE_LEN).astype(np.int8)
-        backbones.append(bb)
-        for a in range(ALLELES_PER_FAMILY):
-            s = bb.copy()
-            pos = rng.integers(0, ALLELE_LEN, size=SNPS)
-            s[pos] = rng.integers(0, 4, size=SNPS).astype(np.int8)
-            data.columns[0].append("hla_kir_20k")
-            data.columns[1].append(f"F{fam:02d}*{a:04d}")
-            data.columns[2].append(str(ALLELE_LEN))
-            data.columns[3].append(seqmod.decode(s))
+    data, backbones = build_library(n_families)
     lib_path = outdir / "big20k.json"
     with open(lib_path, "w") as f:
         json.dump([Config().to_dict(), data.__dict__], f)
-    print(f"library: {lib_path}")
+    return lib_path, backbones
+
+
+def write_reads(outdir: pathlib.Path, backbones, n_reads: int):
+    """Gzipped FASTQ of n_reads backbone reads (seed 7); returns its path."""
+    from nimble_tpu import seq as seqmod
 
     bb_mat = np.stack(backbones)
+    n_fam = len(backbones)
     fq_path = outdir / f"reads20k_{n_reads}.fastq.gz"
     base_lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     qual = b"I" * READ_LEN
@@ -61,7 +47,7 @@ def main():
         written = 0
         while written < n_reads:
             n = min(chunk, n_reads - written)
-            fam = rng.integers(0, N_FAMILIES, size=n)
+            fam = rng.integers(0, n_fam, size=n)
             st = rng.integers(0, ALLELE_LEN - READ_LEN + 1, size=n)
             idx = st[:, None] + np.arange(READ_LEN)[None, :]
             codes = bb_mat[fam[:, None], idx].astype(np.int8)
@@ -80,8 +66,17 @@ def main():
                 )
             f.write(b"".join(lines))
             written += n
-            print(f"\r{written}/{n_reads}", end="", file=sys.stderr, flush=True)
-    print(f"\nreads: {fq_path}")
+    return fq_path
+
+
+def main():
+    outdir = pathlib.Path(sys.argv[1])
+    n_reads = int(sys.argv[2]) if len(sys.argv) > 2 else 2_000_000
+    n_families = int(sys.argv[3]) if len(sys.argv) > 3 else N_FAMILIES
+    outdir.mkdir(parents=True, exist_ok=True)
+    lib_path, backbones = write_library(outdir, n_families)
+    print(f"library: {lib_path}")
+    print(f"reads: {write_reads(outdir, backbones, n_reads)}")
 
 
 if __name__ == "__main__":

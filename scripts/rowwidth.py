@@ -1,9 +1,11 @@
-"""Row-width scaling of XLA TPU gather: is a 96-int32 row as cheap as 16?"""
-import sys, time
+"""Row-width scaling of XLA's row gather: is a 96-int32 row as cheap as 16?"""
+import pathlib, sys, time
 import numpy as np, jax, jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from nimble_tpu import accel
+
+accel.compile_cache_dir()
 
 N = 655360
 CAP = 131072

@@ -19,8 +19,9 @@ K = 21
 def main():
     import jax, jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from nimble_tpu import accel
+
+    accel.compile_cache_dir()
 
     from nimble_tpu import seq as seqmod
     from nimble_tpu.config import Config, Data
@@ -66,7 +67,8 @@ def main():
         f"{index.class_bits.nbytes/1e9:.2f} GB",
         flush=True,
     )
-    print(plan_index_placement(index, n_chips=8), flush=True)
+    print(plan_index_placement(index, hbm_bytes_per_chip=accel.memory_bytes(),
+                               n_chips=8), flush=True)
 
     # family-attributable reads: from allele-specific SNP neighborhoods so
     # correctness is checkable (the read's source family must be in the

@@ -1,6 +1,6 @@
 """Scale validation: index build for a ~20k-allele HLA/KIR-class library
 (BASELINE.json config 3). Host-side build + memory accounting; optional
-device align smoke when run with a TPU."""
+device align smoke when run with an accelerator."""
 import sys
 import time
 
@@ -11,6 +11,7 @@ sys.path.insert(0, "/root/repo")
 from nimble_tpu import seq as seqmod
 from nimble_tpu.config import Config, Data
 from nimble_tpu.index.builder import build_index
+from nimble_tpu import accel
 from nimble_tpu.parallel.mesh import plan_index_placement
 
 N_GENES = 20
@@ -44,5 +45,5 @@ print(
     f"table {table_mb:.0f} MB, class_bits {class_mb:.0f} MB",
     flush=True,
 )
-plan = plan_index_placement(index, hbm_bytes_per_chip=14 << 30, n_chips=8)
+plan = plan_index_placement(index, hbm_bytes_per_chip=accel.memory_bytes(), n_chips=8)
 print("placement plan:", plan, flush=True)

@@ -8,8 +8,9 @@ import numpy as np
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from nimble_tpu import accel
+
+    accel.compile_cache_dir()
 
     from nimble_tpu.config import Config
     from nimble_tpu.index.builder import KmerIndex

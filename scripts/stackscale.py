@@ -13,10 +13,10 @@ sys.path.insert(0, _ROOT)
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", _ROOT + "/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import bench as B
+from nimble_tpu import accel
+
+accel.compile_cache_dir()
 from nimble_tpu import seq as seqmod
 from nimble_tpu.align.engine import AlignEngine
 from nimble_tpu.align.stacked import StackedEngine

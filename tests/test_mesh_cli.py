@@ -1,6 +1,6 @@
 """CLI-reachable multi-chip execution on the virtual 8-device CPU mesh:
 `align --mesh` and `report --device/--distributed` must produce byte-equal
-outputs to the single-device/host paths (the TPU-native scale-out layer the
+outputs to the single-device/host paths (the device scale-out layer the
 reference lacks; reference parallelism is `-c` threads only,
 nimble/__main__.py:180)."""
 import os
